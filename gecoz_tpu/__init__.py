@@ -1,44 +1,49 @@
-"""gecoz-tpu: a TPU-native lossless genomic compression framework.
+"""gecoz_tpu: a lossless genomic compression framework in JAX.
 
-A from-scratch JAX/XLA/Pallas re-design with the capabilities of the
-reference Java toolkit (redmitry/gecoz): FASTA <-> `.gcz` FM-index
-compression (suffix array -> BWT -> Huffman-shaped wavelet tree with
-rank-indexed bit vectors + sampled suffix array), batched FM-index
-count/locate/extract, a from-scratch deflate/gzip/BGZF codec, and
-BAM/SAM readers — with block-level data parallelism over TPU meshes.
+A from-scratch JAX/XLA re-design with the capabilities of the reference
+Java toolkit (redmitry/gecoz): FASTA <-> `.gcz` FM-index compression
+(suffix array -> BWT -> Huffman-shaped wavelet tree with rank-indexed bit
+vectors + sampled suffix array), batched FM-index count/locate/extract,
+a from-scratch deflate/gzip/BGZF codec, and BAM/SAM readers — with
+block-level data parallelism over device meshes.
 """
+
+import os
 
 __version__ = "0.1.0"
 
+# fixed, so the compile cache keeps hitting across processes of one checkout
+DEFAULT_COMPILE_CACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), ".jax_cache")
+
+
+def compile_cache_dir() -> str | None:
+    """Directory of JAX's persistent compilation cache, or None (no cache).
+
+    `$JAX_COMPILATION_CACHE_DIR` when set, else `.jax_cache` at the root of
+    the checkout.  None when the CPU is forced: CPU compiles are fast, and
+    XLA:CPU's cache loader warns across machine-feature changes.
+    """
+    if os.environ.get("JAX_PLATFORMS", "").split(",")[0] == "cpu":
+        return None
+    return os.environ.get("JAX_COMPILATION_CACHE_DIR") or DEFAULT_COMPILE_CACHE
+
 
 def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache (set once, per-user cache dir).
+    """Point JAX's persistent compilation cache at `compile_cache_dir()`.
 
-    Remote-TPU jits in this stack cost 25-40 s each to compile (~2 min for
-    the SA while_loop); without a persistent cache every fresh CLI process
-    pays that again before the device tier earns anything.  One config
-    line amortizes it across processes.  Opt out (or redirect) with
-    GECOZ_NO_COMPILE_CACHE=1 / JAX_COMPILATION_CACHE_DIR.
+    The device programs (suffix sort, wavelet, decode) take seconds to
+    compile each; the cache lets later processes of the same checkout
+    load them instead.
     """
-    import os
-    if os.environ.get("GECOZ_NO_COMPILE_CACHE"):
+    path = compile_cache_dir()
+    if path is None:
         return
-    # CPU compiles are fast and the XLA:CPU AOT cache loader warns (and can
-    # in principle SIGILL) across machine-feature changes — the cache only
-    # earns its keep on accelerators, so skip it when CPU is forced.
-    if os.environ.get("JAX_PLATFORMS", "").split(",")[0] == "cpu":
-        return
-    path = os.environ.get("JAX_COMPILATION_CACHE_DIR") or os.path.join(
-        os.path.expanduser("~"), ".cache", "gecoz", "jax")
-    try:
-        os.makedirs(path, exist_ok=True)
-        import jax
-        jax.config.update("jax_compilation_cache_dir", path)
-        # a 30 s remote compile is worth caching even if XLA thinks the
-        # program is small; cache everything that takes >= 1 s
-        jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
-    except Exception:                          # noqa: BLE001 — best effort
-        pass
+    os.makedirs(path, exist_ok=True)
+    import jax
+    jax.config.update("jax_compilation_cache_dir", path)
+    # cache every program that takes >= 1 s to compile, however small
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
 
 
 _enable_compile_cache()

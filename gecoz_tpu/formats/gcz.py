@@ -100,15 +100,15 @@ def parse_ssa_header(buf: bytes, offset: int) -> tuple[int, int]:
 # -- block encode ----------------------------------------------------------
 
 # device dispatch is serialized: concurrent whole-block programs from the
-# threaded writer would contend for HBM (the pool parallelism is for the
-# host tiers; the device pipelines internally)
+# threaded writer would contend for device memory (the pool parallelism is
+# for the host tiers; the device pipelines internally)
 _DEVICE_LOCK = threading.Lock()
 
 
 def _encode_on_device(data: np.ndarray, shape: HSWTShape):
-    """Device tier: SA + BWT + wavelet bit planes on the TPU.
+    """Device tier: SA + BWT + wavelet bit planes on the device.
 
-    Blocks whose suffix-sort working set exceeds one device's HBM take
+    Blocks whose suffix-sort working set exceeds one device's memory take
     the in-block sharded kernel over all attached devices
     (parallel/sharded_sa) instead of failing over to the host tier."""
     import jax
@@ -129,8 +129,7 @@ def _encode_on_device(data: np.ndarray, shape: HSWTShape):
             # cheap host pass each) before the device dispatch; the BWT
             # comes back as a free operand of the final sort (runs) or
             # one fused on-device gather (kmer).  The upload itself goes
-            # 2-bit packed with run exceptions (utils/xfer) — ~3.5x
-            # fewer transport bytes on slow relays.
+            # 2-bit packed with run exceptions (utils/xfer).
             from gecoz_tpu.utils import xfer
             s_dev = xfer.put_packed(data)
             sa_dev, bwt_dev_arr = suffix_array_device(
@@ -149,11 +148,11 @@ def encode_block(data: np.ndarray, headers: list[str],
     Pipeline (GecozFileWriter.write:124-159 + BlockWriter.run:257-284):
     histogram -> shape -> suffix array -> BWT -> wavelet nodes + sampled SA.
 
-    backend 'auto' uses the TPU when a functioning accelerator is attached
-    and the block is large enough to amortize dispatch; any device failure
-    (incl. OOM) falls back to the host tier — the elastic-degradation
-    analog of the reference's pool-shrink-on-OOM (GecozFileWriter.java:
-    204-226), with static exact-size planning doing the rest.
+    backend 'auto' picks the tier up front (`accel.device_tier`: a GPU
+    backend and a block of at least DEVICE_MIN_BYTES); 'device' always
+    runs on the device.  A device error raises: there is no host
+    fallback (static exact-size planning replaces the reference's
+    pool-shrink-on-OOM, GecozFileWriter.java:204-226).
     """
     data = np.asarray(data, dtype=np.uint8)
     n = len(data)
@@ -170,22 +169,13 @@ def encode_block(data: np.ndarray, headers: list[str],
 
     if backend == "auto":
         from gecoz_tpu.utils import accel
-        if accel.device_worthwhile(n) and accel.accelerator_ok() \
-                and accel.encode_device_wins(n):
+        if accel.device_tier(n):
             backend = "device"
 
-    sa = None
     if backend == "device":
-        try:
-            sa, bwt, hswt = _encode_on_device(data, shape)
-        except Exception as ex:             # noqa: BLE001 — any device
-            import logging
-            logging.getLogger("gecoz").warning(
-                "device encode failed (%s: %s); using the host tier",
-                type(ex).__name__, ex)
-    if sa is None:
-        sa = suffix_array(data, backend="auto" if backend == "device"
-                          else backend)
+        sa, bwt, hswt = _encode_on_device(data, shape)
+    else:
+        sa = suffix_array(data, backend=backend)
         bwt = bwt_from_sa(data, sa)
         hswt = HSWT.build(bwt, shape)
     ssa = SampledSAIndex.build(sa, sampling_rate)

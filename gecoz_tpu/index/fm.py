@@ -14,7 +14,7 @@ is exact for every input (the target rows of non-wrap separator sources are
 rows 1..nseq-1 in source order; row 0 is the final terminator, the wrap
 row's own target).  Searching (`occ`-only) is unaffected.
 
-The TPU query engine in `gecoz_tpu.ops.fmq` implements the same math over
+The device query engine in `gecoz_tpu.ops.fmq` implements the same math over
 device arrays; this class is the exact host reference and the CPU fallback.
 """
 
@@ -266,7 +266,7 @@ class FMIndex:
     def decode_range(self, lo: int, hi: int) -> np.ndarray:
         """Decode global positions [lo, hi) only.
 
-        TPU-shaped decode: one independent LF walk per sampling interval,
+        Device-shaped decode: one independent LF walk per sampling interval,
         all advanced in lockstep (the device version in ops/fmq.py runs the
         identical schedule with on-device gathers).  Work and memory are
         proportional to the sampling-aligned span, not the block size.
@@ -356,7 +356,7 @@ class FMIndex:
 
         Thread-safe once `lf` and `walk_seeds` are materialized (read-only
         from then on); the native path releases the GIL, so chunk workers
-        scale across threads — the TPU-host analog of GecoRead.java:141-175's
+        scale across threads — the host analog of GecoRead.java:141-175's
         4 MiB SequenceExtractor chunks."""
         n = self.length
         rate = 1 << self.index.sampling_factor

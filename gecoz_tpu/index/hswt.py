@@ -8,7 +8,7 @@ Unlike the reference's one-symbol-at-a-time streaming fill
 (HuffmanShapedWaveletTree.fill:127-146), construction here is vectorized:
 each node's bit vector is a masked gather over the code arrays; the device
 (JAX) build in `gecoz_tpu.ops.wavelet` goes further with level-order radix
-refinement.  Queries keep numpy rank structures per node; the TPU query path
+refinement.  Queries keep numpy rank structures per node; the device query path
 uses flattened planes in `gecoz_tpu.ops.fmq`.
 """
 

@@ -215,7 +215,7 @@ class RankBitVector:
       query batches.  Opening a multi-GB block costs O(#nodes) and a count
       query touches O(|P| * codelen * 74 bytes) — never a full node.
     * **Built tier** — flat uint64 words + superblock prefix ranks
-      (TPU-style layout), ~3x faster per query but paying a full O(n)
+      (device-style layout), ~3x faster per query but paying a full O(n)
       deinterleave + prefix rebuild first.  Queries switch to it
       automatically when a single batch is large enough to amortize the
       build (decode-heavy paths), or when the vector was built from bits.

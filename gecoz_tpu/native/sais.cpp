@@ -1,6 +1,6 @@
 // SA-IS suffix array construction (linear time) + gecoz layout helpers.
 //
-// Host-side native tier of gecoz-tpu: plays the role the reference's Java
+// Host-side native tier: plays the role the reference's Java
 // kernels play (nova-algo string/SAIS.java — an SA-IS/SACA-K hybrid with a
 // 5n working-memory contract, SAIS.java:39-41, README.md:41).  This is an
 // independent MEMORY-LEAN SA-IS implementation (Nong, Zhang & Chan, DCC

@@ -1,4 +1,4 @@
-"""TPU-native FM-index query engine: batched occ / search / locate / decode.
+"""Device FM-index query engine: batched occ / search / locate / decode.
 
 Design (vs the reference's per-query pointer chasing, GSSA.java:187-251):
 
@@ -7,9 +7,9 @@ Design (vs the reference's per-query pointer chasing, GSSA.java:187-251):
   alongside (`plane_pairs`), so occ(sym, pos) is one 2-wide gather + a
   popcount — versus 2 gathers *per wavelet level* in the tree walk, and a
   fused (lf, symbol) table makes decode/locate steps a single gather
-  (`with_lf_table`).  For genomic
-  alphabets (sigma <= 16) this costs ~0.2*sigma bytes/symbol of HBM and
-  roughly triples decode speed.  (The wavelet tree remains the *storage*
+  (`with_lf_table`).  For genomic alphabets (sigma <= 16) this costs
+  ~0.2*sigma bytes/symbol of device memory and roughly triples decode
+  speed.  (The wavelet tree remains the *storage*
   format; planes are built at load/encode time.)
 * Everything is batched: searches run thousands of patterns in lockstep,
   locate walks advance all hit rows together (bounded by the sampling
@@ -45,11 +45,11 @@ class DeviceFMBlock(NamedTuple):
     bwt: jax.Array          # uint8 [n] BWT bytes
     plane_pairs: jax.Array  # fused (word, prefix) pairs u32 [sigma*W,2]
                             # for blocks under _PAIR_LIMIT: one 8-byte
-                            # row gather per occ (fastest search), at the
-                            # cost of XLA's T(8,128) tile padding the
-                            # 2-wide minor dim 64x — affordable small,
-                            # 23 GiB at chr1 scale.  Empty [0, 2] for
-                            # large blocks, which use the flat arrays:
+                            # row gather per occ (fastest search); a
+                            # 2-wide minor dim risks a tile-padded
+                            # layout, affordable only for small blocks.
+                            # Empty [0, 2] for large blocks, which use
+                            # the flat arrays:
     plane_words: jax.Array  # uint32 [sigma*W] flat bit words (empty for
                             # small blocks)
     plane_pres: jax.Array   # uint32 [sigma*W] per-word exclusive rank
@@ -132,9 +132,9 @@ jax.tree_util.register_pytree_node(
 
 
 _PACK_LIMIT = 1 << 23    # lf values below this pack with the symbol in u32
-# blocks under this build the FUSED (word, pre) pair table (fast occ,
-# 64x-tiled HBM: ~12 bytes/char); above it the flat arrays (2 gathers,
-# ~1.5 bytes/char) keep chr1-class query state inside HBM
+# blocks under this build the FUSED (word, pre) pair table (fast occ, but
+# its 2-wide minor dim may be tile-padded); above it the flat arrays (two
+# 4-byte gathers, ~1.5 bytes/char) keep chr1-class query state small
 _PAIR_LIMIT = 1 << 24
 
 
@@ -152,9 +152,8 @@ def _corrected_lf(block: DeviceFMBlock) -> jax.Array:
     sym = block.bwt.astype(jnp.int32)
     _, order = jax.lax.sort((sym, iota), num_keys=2)
     lf = _apply_perm(order, iota)
-    from gecoz_tpu.ops.scan_pallas import cumsum_i32
     is_zero = sym == 0
-    zero_rank = cumsum_i32(is_zero.astype(jnp.int32)) - 1
+    zero_rank = jnp.cumsum(is_zero, dtype=jnp.int32) - 1
     corr = 1 + zero_rank - (block.wrap_row < iota).astype(jnp.int32)
     lf = jnp.where(is_zero, corr, lf)
     return jnp.where(iota == block.wrap_row, 0, lf)
@@ -176,9 +175,8 @@ def with_locate_table(block: DeviceFMBlock) -> DeviceFMBlock:
     batched, one 4-byte gather per step (~rate gathers per query).  Here
     the walk is precomputed for ALL rows at once by sf pointer-doubling
     rounds — round t extends every row's known path from 2^t to 2^(t+1)
-    steps via one permutation inversion sort + one value-carrying sort
-    (sort-side composition: sorts are the cheap primitive on TPU, random
-    gathers are not) — after which a locate is ONE 8-byte row gather plus
+    steps via one permutation inversion sort + one value-carrying
+    permutation write (`apply_perm`) — after which a locate is ONE 8-byte row gather plus
     the final sampled-value lookup.  Every row reaches a sampled row
     within rate steps (SA values step down by 1 per LF step and every
     rate'th value is marked), so sf rounds always converge.
@@ -244,19 +242,18 @@ def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
 
     # Fused k-step decode table: LF^k plus the k symbols emitted along the
     # way, so a decode walk needs ONE (1 + k/4)-word gather per k text
-    # positions.  Walks are HBM-latency-bound (~35 ns/gather measured), so
-    # halving the gather count ~halves decode time; k = 8 costs one extra
-    # composition round at build and 4 more bytes/row.
-    # Permutation composition lf[lf[i]] is done entirely sort-side: one
-    # sort inverts the permutation, then the values return to position
-    # order via _apply_perm (extra value operands ride along ~free).
-    # Random gathers cost ~30ms/4Mi and scatters ~25ms on v5e; a sort ~8ms.
+    # positions.  Walks are memory-latency-bound, so halving the gather
+    # count ~halves decode time; k = 8 costs one extra composition round
+    # at build and 4 more bytes/row.
+    # Permutation composition lf[lf[i]]: one sort inverts the permutation,
+    # then the values return to position order via _apply_perm (extra
+    # value operands ride along).
     rate = 1 << block.sf
     if rate % 8 == 0:
         # k=8, 8-byte rows: the eight symbols ride as 4-bit PLANE codes
         # (sigma <= 16), decoded back to bytes by a 16-way select in the
-        # walk loop — gather cost scales with ROW BYTES (measured 35.8 vs
-        # 59.7 ns/row for 8 vs 12 bytes), so the packed row wins ~1.5x
+        # walk loop — gather cost scales with row bytes, so the packed
+        # 8-byte row beats a 12-byte one
         pc = jnp.maximum(block.sym_plane[sym], 0).astype(jnp.uint32)
         _, i1 = jax.lax.sort((lf, iota), num_keys=1)
         lf2, q1 = _apply_perm(i1, lf, pc)
@@ -269,9 +266,8 @@ def with_lf_table(block: DeviceFMBlock, decode: bool = True) -> DeviceFMBlock:
         c8 = c4 | (q4 << 16)
         if rate % 16 == 0:
             # k=16, 12-byte rows: one more composition round folds two
-            # 8-step words per gather — per SYMBOL the 12-byte row costs
-            # ~59.7/16 = 3.7 ns vs 35.8/8 = 4.5 ns (probe_gather2d row
-            # scaling), and the walk does half the sequential rounds
+            # 8-step words per gather — fewer row bytes per symbol, and
+            # the walk does half the sequential rounds
             _, i8 = jax.lax.sort((lf8, iota), num_keys=1)
             lf16, q8 = _apply_perm(i8, lf8, c8)
             lfk_tab = jnp.stack([lf16.astype(jnp.uint32), c8, q8], axis=1)
@@ -401,7 +397,7 @@ def build_device_block_parts_jit(bwt: jax.Array, mark_rows: jax.Array,
     The wire-thin companion of build_device_block_jit: a decode lift
     transfers only the (packed) BWT and two m = ceil(n/rate) int32
     arrays (~n/4 + n/8 bytes) instead of host-built planes + bwt
-    (~2.7n bytes) — the `decode.lift` fix of VERDICT r4 #1(d).
+    (~2.7n bytes).
     """
     n = bwt.shape[0]
     m = perm.shape[0]
@@ -473,8 +469,8 @@ def device_block_from_fm_packed(fm) -> tuple[DeviceFMBlock,
 
 def fetch_text_packed(text_dev, symbols: tuple[int, ...], n: int
                       ) -> np.ndarray:
-    """Device -> host text fetch at 4 bits/symbol (2x fewer wire bytes;
-    the decode direction of VERDICT r4 #1)."""
+    """Device -> host text fetch at 4 bits/symbol (2x fewer bytes over
+    the host link)."""
     from gecoz_tpu.utils import xfer
 
     pack = jax.jit(xfer.pack_nibbles_device, static_argnames=("symbols",))
@@ -542,9 +538,8 @@ def build_device_block_jit(bwt: jax.Array, sa: jax.Array, sf: int,
         perm = (sa[rows] >> sf).astype(jnp.int32)
         mark_rows = rows.astype(jnp.int32)
     else:
-        # sampled values in row order via one stable partition sort (marked
-        # rows first) — compacting via nonzero+gather is ~4x a sort on TPU.
-        # The (not-marked, row) key pair packs into one int31 word (rows
+        # sampled values in row order via one partition sort (marked rows
+        # first) instead of nonzero + gather.  The (not-marked, row) key pair packs into one int31 word (rows
         # < 2^30 by the block-size contract), so the sort carries only
         # two operands; the low bits of the sorted key are the select-1
         # table
@@ -655,7 +650,7 @@ def with_kmer_table(block: DeviceFMBlock, k: int | None = None
         # so a 16-mer runs 8 lockstep occ rounds instead of 9 — each
         # seeded character removes a full 2-gathers-per-query round, and
         # the ~150 MB level-8 table amortizes over every search batch
-        # against the block (VERDICT r4 #2)
+        # against the block
         cap = 24 if block.n >= (1 << 22) else 19
         k = max(1, min(8, cap // bits,
                        int(max(block.n, 2)).bit_length() // bits))
@@ -923,11 +918,7 @@ def _row_with_sa(block: DeviceFMBlock, value):
 def decode_text_device(fm) -> np.ndarray:
     """Host entry: lift an FMIndex to device, decode, return numpy text.
 
-    Decode is the XLA fused-LF^k path everywhere.  A fused Pallas LF-walk
-    kernel was built and deleted in round 4: Mosaic cannot express the 1D
-    walk gather ("Only 2D gather is supported", tools/probe_pallas.py,
-    re-verified on v5e), so the kernel could never run on-chip and a
-    permanent fallback path is worse than none.
+    Decode is the XLA fused-LF^k path (`decode_text_jit`).
     """
     block = jax.jit(with_lf_table)(device_block_from_fm(fm))
     return np.asarray(decode_text_jit(block))

@@ -10,7 +10,7 @@ first), so any correct algorithm is interchangeable.
 Backends:
 * `suffix_array_numpy` — prefix-doubling with `np.lexsort` (host oracle).
 * `gecoz_tpu.ops.sa_device.suffix_array_device` — JAX prefix-doubling with
-  `lax.sort`, jittable and shardable (the TPU path).
+  `lax.sort`, jittable and shardable (the device path).
 * `gecoz_tpu.native` — C++ SA-IS for fast host-side encodes (see
   native/sais.cpp).
 """

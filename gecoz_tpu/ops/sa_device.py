@@ -1,9 +1,9 @@
 """Suffix-array construction on device (JAX, jittable, mesh-shardable).
 
-Prefix doubling: O(log n) rounds of a two-key int32 sort.  Sorting is the
-one primitive XLA executes at speed-of-light on TPU, unlike the
-reference's induced-sort pointer chasing (SAIS.java) which is irreducibly
-serial and gather-bound.
+Prefix doubling: O(log n) rounds of a two-key int32 sort, a data-parallel
+primitive on every XLA backend, unlike the reference's induced-sort
+pointer chasing (SAIS.java), which is irreducibly serial and
+gather-bound.
 
 Round-count optimization: initial ranks come from *dense-packed k-mers* —
 symbols are mapped to a dense alphabet (0 reserved for past-the-end, which
@@ -32,25 +32,33 @@ import jax.numpy as jnp
 import numpy as np
 
 
-def _scatter_is_cheap() -> bool:
-    """Pick the permutation-write strategy per backend (trace time).
+def _scatter_is_cheap(nvals: int = 1) -> bool:
+    """Pick the permutation-write strategy per backend (trace time) for a
+    write carrying `nvals` value arrays.
 
-    On TPU a random 4Mi scatter costs ~25 ms and a gather ~30 ms while a
-    2-operand sort is ~8 ms — sorting is the cheap primitive, random HBM
-    access is not.  On CPU it is the reverse (scatter is one linear pass).
+    CPU: a scatter is one linear pass, so always scatter.  GPU: a 1-key
+    sort with ONE value operand takes XLA's radix-sort path and beats a
+    random scatter, but a sort with more operands falls back to a
+    comparison sort that is far slower.  Measured by chip_smoke.py on an
+    H100 80GB HBM3 (400 W power limit), 2^28 int32: one value, sort
+    9.5 ms vs scatter 21.7 ms; three values, sort 460 ms vs scatter
+    64 ms.  So the GPU sorts single-value writes and scatters the rest.
     """
-    return jax.default_backend() == "cpu"
+    backend = jax.default_backend()
+    if backend == "gpu":
+        return nvals > 1
+    return backend == "cpu"
 
 
 def apply_perm(dest, *vals):
     """out[dest[j]] = vals[j] for each value array; `dest` a permutation.
 
-    TPU: one 1-key sort carrying all values; CPU: plain scatters.
-    `dest` is distinct by contract, so the sort need not be stable —
-    XLA's stable sort materializes an implicit index tiebreaker (an
-    extra operand through the whole bitonic network), measurably slower.
+    One 1-key sort carrying the values, or plain scatters, as
+    `_scatter_is_cheap` picks.  `dest` is distinct by contract, so the
+    sort need not be stable (a stable XLA sort carries an implicit index
+    tiebreaker operand).
     """
-    if _scatter_is_cheap():
+    if _scatter_is_cheap(len(vals)):
         outs = tuple(jnp.zeros_like(v).at[dest].set(v) for v in vals)
     else:
         outs = jax.lax.sort((dest,) + vals, num_keys=1,
@@ -62,13 +70,9 @@ def _sort_rerank_n(keys: tuple, iota):
     """Sort positions by the key tuple; return (new dense ranks in
     position order, sort order, all-distinct flag).
 
-    NB more keys per round (prefix tripling/quadrupling) cuts round
-    counts, but >3-operand lax.sort INSIDE a while_loop blows up Mosaic
-    compile time by an order of magnitude — callers inside the doubling
-    loop stay at 2 keys; the one round that runs outside the loop may go
-    wider (see `packed_round`'s nkeys).
+    Callers inside the doubling loop stay at 2 keys; only the round that
+    runs outside the loop goes wider (see `packed_round`'s nkeys).
     """
-    from gecoz_tpu.ops.scan_pallas import cumsum_i32
     n = iota.shape[0]
     # unstable: ties collapse to one rank whatever their order, and every
     # consumer of `order` pairs it with values that are equal across the
@@ -82,7 +86,7 @@ def _sort_rerank_n(keys: tuple, iota):
         diff = diff | (k[1:] != k[:-1])
     new_group = jnp.concatenate([
         jnp.ones((1,), jnp.int32), diff.astype(jnp.int32)])
-    ranks_in_order = cumsum_i32(new_group) - 1
+    ranks_in_order = jnp.cumsum(new_group, dtype=jnp.int32) - 1
     rank = apply_perm(order, ranks_in_order)
     done = ranks_in_order[n - 1] == n - 1
     return rank, order, done
@@ -96,14 +100,13 @@ def _sort_rerank(key1, key2, iota):
 
 def _sort_rerank1(key, iota):
     """1-key variant of _sort_rerank (sorts 2 operands, not 3): for callers
-    whose composite key fits one int31 word (~half the sort cost on TPU)."""
-    from gecoz_tpu.ops.scan_pallas import cumsum_i32
+    whose composite key fits one int31 word (one fewer sort operand)."""
     n = iota.shape[0]
     ks, order = jax.lax.sort((key, iota), num_keys=1, is_stable=False)
     new_group = jnp.concatenate([
         jnp.ones((1,), jnp.int32),
         (ks[1:] != ks[:-1]).astype(jnp.int32)])
-    ranks_in_order = cumsum_i32(new_group) - 1
+    ranks_in_order = jnp.cumsum(new_group, dtype=jnp.int32) - 1
     rank = apply_perm(order, ranks_in_order)
     done = ranks_in_order[n - 1] == n - 1
     return rank, order, done
@@ -137,7 +140,7 @@ def _suffix_array_jit(s: jax.Array, dense: jax.Array | None = None,
 
     def shifted(r, k):
         # r[i+k] with -1 past the end: a dynamic slice of a padded buffer,
-        # NOT a gather (random gathers are ~60ms/4M on v5e; slices are free)
+        # not a gather
         padded = jnp.concatenate([r, jnp.full((n,), -1, jnp.int32)])
         return jax.lax.dynamic_slice(padded, (k,), (n,))
 
@@ -246,7 +249,7 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
     pack_seed = bool(syms) and sym_bits + 1 + eb <= 31
     if pack_seed:
         # dense codes via compare-sum against the static alphabet (sigma
-        # cheap VPU passes; a 256-entry table gather would be latency-bound)
+        # fused elementwise passes instead of a 256-entry table gather)
         codes = jnp.zeros((n,), jnp.int32)
         for sym in syms:
             codes = codes + (s >= jnp.uint8(sym)).astype(jnp.int32)
@@ -254,11 +257,10 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
     else:
         codes = s.astype(jnp.int32) + 1
     nxt = jnp.concatenate([codes[1:], jnp.full((1,), -1, jnp.int32)])
-    from gecoz_tpu.ops.scan_pallas import (cumsum_i32, fill_fwd_i32,
-                                           fill_rev_i32)
+    from gecoz_tpu.ops.scan import fill_fwd_i32, fill_rev_i32
     is_end = codes != nxt                      # last position of each run
     is_start = jnp.concatenate([jnp.ones((1,), jnp.bool_), is_end[:-1]])
-    run_id = cumsum_i32(is_start.astype(jnp.int32)) - 1
+    run_id = jnp.cumsum(is_start, dtype=jnp.int32) - 1
     m = run_id[n - 1] + 1                      # number of runs (traced)
     # one backward segmented fill carries (run end position << 1 |
     # below-side bit) to every member: `below` = symbol after the run <
@@ -347,7 +349,7 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
             jnp.ones((1,), jnp.int32),
             ((vks[1:] != vks[:-1])
              | (nsts[1:] != nsts[:-1])).astype(jnp.int32)])
-        dvr = cumsum_i32(new_group) - 1
+        dvr = jnp.cumsum(new_group, dtype=jnp.int32) - 1
         pkey = jnp.where(iota < m, order1, (1 << 30) + iota)
         _, dense_rank, starts_full = jax.lax.sort(
             (pkey, dvr, order1), num_keys=1)
@@ -367,7 +369,7 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
     # so each 2-key sort round covers 2p*k tokens instead of 2k — the
     # early rounds multiply the depth at identical sort cost, with the p
     # selected at runtime via `where` (shapes and the loop body stay
-    # static; no Mosaic-hostile wide sorts).  uint32 keys (sorted
+    # static; the loop body keeps 2-key sorts).  uint32 keys (sorted
     # unsigned) double the packable range over int31: p=5 engages up to
     # B = 83 groups instead of 72 — DNA run-token alphabets measure ~74
     # (64 MiB census), exactly the band this unlocks, so round one
@@ -388,9 +390,8 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
     def packed_round(rank, k, nkeys: int = 2, carry=None):
         """One doubling round covering nkeys*p tokens per sort.
 
-        nkeys > 2 widens the lax.sort to nkeys+1 operands — safe ONLY for
-        the round that runs OUTSIDE the while_loop (wide sorts inside a
-        while_loop are a Mosaic compile cliff); the first round's deeper
+        nkeys > 2 widens the lax.sort to nkeys+1 operands — used only by
+        the round that runs OUTSIDE the while_loop; the first round's deeper
         coverage (e.g. 25 tokens at nkeys=5, p=5) finishes random text in
         one round where two were needed.
 
@@ -434,7 +435,6 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
         if carry is None:
             rank, _, done = _sort_rerank_n(tuple(keys), iota_m)
             return rank, k * mult, done
-        from gecoz_tpu.ops.scan_pallas import cumsum_i32
         out = jax.lax.sort(tuple(keys) + (iota_m, carry),
                            num_keys=nkeys, is_stable=False)
         ks, order, cs = out[:nkeys], out[nkeys], out[nkeys + 1]
@@ -443,7 +443,7 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
             diff = diff | (kk[1:] != kk[:-1])
         new_group = jnp.concatenate([
             jnp.ones((1,), jnp.int32), diff.astype(jnp.int32)])
-        rio = cumsum_i32(new_group) - 1
+        rio = jnp.cumsum(new_group, dtype=jnp.int32) - 1
         done = rio[M - 1] == M - 1
         return (rio, order, cs), k * mult, done
 
@@ -455,15 +455,13 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
         _, k, done = state
         return jnp.logical_and(~done, k < 2 * n)
 
-    import os
     if r1_keys is None:
         # default 6: with p=4 packing (DNA-run token alphabets stay under
         # ~215 groups) round 1 orders 24 tokens deep — past the ~21-token
-        # distinctness depth of 64 Mi genomic text (tools/probe_sa64.py),
-        # so the while_loop usually exits without running a second
-        # (3-op sort + rerank) round.  Wide sorts are safe here because
-        # round 1 runs OUTSIDE the while_loop (see packed_round).
-        r1_keys = int(os.environ.get("GECOZ_R1_KEYS", "6"))
+        # distinctness depth of 64 Mi genomic text, so the while_loop
+        # usually exits without running a second (3-op sort + rerank)
+        # round.  Round 1 runs OUTSIDE the while_loop (see packed_round).
+        r1_keys = 6
     fast_ok = (starts_full is not None and nr_mode != "gather"
                and not _scatter_is_cheap())
     if fast_ok:
@@ -527,8 +525,6 @@ def _suffix_array_runs_jit(s: jax.Array, nr_mode: str = "auto",
         use_fill = (starts_full is not None and nr_mode != "gather") \
             or nr_mode == "fill"
         if use_fill:
-            # TPU: random gathers cost ~30ms/4Mi while a 1-key sort is
-            # ~8ms and a streaming scan ~2ms (tools/probe_nr.py).
             # Placement sort lands nrank[j] at the j-th run start; the
             # run-wide broadcast is ONE segmented forward fill (scan op
             # "last": nearest marked value at or before each position

@@ -17,8 +17,8 @@ straight out of the packed words (lengths are known from the shape) into
 the pre-order gecoz layout.
 
 Levels are few (max code length; ~3-7 for genomic alphabets), so the whole
-construction is `maxlen` stable sorts — sort-shaped work XLA runs at full
-tile throughput on the MXU-adjacent sort units.
+construction is `maxlen` stable sorts — data-parallel work on any XLA
+backend.
 """
 
 from __future__ import annotations

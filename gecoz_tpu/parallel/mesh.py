@@ -2,8 +2,8 @@
 
 The reference scales with a bounded thread pool over independent blocks
 (GecozFileWriter.WriterPoolExecutor, GecozFileWriter.java:174-227, with
-largest-blocks-first submission, GecoIndex.java:88-98).  The TPU-native
-equivalent is data parallelism over the mesh's 'block' axis:
+largest-blocks-first submission, GecoIndex.java:88-98).  The equivalent
+here is data parallelism over the mesh's 'block' axis:
 
 * the block plan (gecoz_tpu.tools.blocks) is scheduled largest-first onto
   shards, size-balanced (greedy LPT — the static analog of the reference's
@@ -86,9 +86,7 @@ def _single_sa(npad: int, syms: tuple[int, ...] | None,
     from gecoz_tpu.ops.sa_device import _suffix_array_runs_jit
 
     # singleton buckets skip vmap: chr1-class blocks get the un-batched
-    # kernel (minimal memory, and the Pallas streaming scans apply — they
-    # fall back under vmap, which has no sound batching rule for the
-    # sequential-carry kernel)
+    # kernel (minimal memory)
     if use_table:
         return jax.jit(lambda s, t: _suffix_array_runs_jit(
             s, syms=syms, m_pad=m_pad, tok_table=t, ell_bits=ell_bits,
@@ -103,14 +101,11 @@ def _state_fn(npad: int, n: int, sf: int):
     (packed mark bits, sampled-value permutation, compacted BWT) from the
     PADDED (sa, bwt) pair, all on device.
 
-    This is the encode-side wire fix (VERDICT r4 #1): round 4 fetched
-    the full int32 SA (4 bytes/char) + BWT (1 byte/char) to host and
-    derived the sampled index there — 5n bytes through the relay per
-    block.  The host only ever serializes DERIVED artifacts: mark bits
-    (n/8), sampled values (n/8) and wavelet node bits (~0.3n), so this
-    program computes them where the SA already lives.  Kept SEPARATE
-    from the SA program: fusing them doubles peak HBM at chr1 scale
-    (measured: the fused 248 MiB index program plans ~25 GB).
+    The host only ever serializes DERIVED artifacts: mark bits (n/8),
+    sampled values (n/8) and wavelet node bits (~0.3n), so this program
+    computes them where the SA already lives instead of fetching the
+    full int32 SA + BWT (5 bytes/char).  Kept SEPARATE from the SA
+    program so the two programs' peak memory does not add up.
     """
     import jax
     import jax.numpy as jnp
@@ -246,16 +241,17 @@ PREWARM_MIN_BYTES = 16 << 20
 
 def prewarm_buckets(sizes: list[int], syms: tuple[int, ...] | None) -> list:
     """Pre-compile the singleton SA programs for future large buckets on a
-    daemon thread (first-run compile-storm mitigation, VERDICT r3 #9).
+    daemon thread (first-run compile-storm mitigation).
 
-    An hg38-profile encode needs ~3 distinct large-block programs at
-    25-40 s of remote compile each; issuing them concurrently with the
-    page-fault-bound FASTA read + the first window's encode hides them.
+    An hg38-profile encode needs ~3 distinct large-block programs;
+    compiling them concurrently with the FASTA read + the first window's
+    encode hides their compile time.
     AOT lower/compile populates the persistent XLA compilation cache, so
     the later real call deserializes instead of recompiling.  The symbol
     guess comes from the first window's data; a block with a novel byte
     just misses the warmup (correctness unaffected).
     """
+    import logging
     import threading
 
     import jax
@@ -284,7 +280,9 @@ def prewarm_buckets(sizes: list[int], syms: tuple[int, ...] | None) -> list:
                 jax.ShapeDtypeStruct((TOK_TABLE_SIZE,), jnp.int32),
             ).compile()
         except Exception:                    # noqa: BLE001 — warmup only
-            pass
+            logging.getLogger("gecoz").debug(
+                "prewarm of SA program %d/%s failed", npad, m_pad,
+                exc_info=True)
 
     threads = []
     for npad in buckets:
@@ -311,7 +309,7 @@ def suffix_arrays_batched(blocks: list[np.ndarray], with_bwt: bool = False
     the reference's n-wide host gather s[sa[i]-1] (BWTDataSource,
     GecozFileWriter.java:300-303) entirely.
 
-    Blocks whose estimated device working set exceeds ONE device's HBM
+    Blocks whose estimated device working set exceeds ONE device's memory
     (accel.needs_sharded_sa) route to the in-block sharded kernel across
     the whole mesh instead — the capacity axis the reference bounds with
     its merge-cap policy (README.md:42-44) and we bound per chip."""
@@ -337,10 +335,8 @@ def suffix_arrays_batched(blocks: list[np.ndarray], with_bwt: bool = False
 
     # pass 1 — stage every bucket: host-side static bounds/tables, then
     # the upload ISSUED (async).  Singleton buckets (the large blocks)
-    # go over the wire 2-bit packed with run-encoded exceptions
-    # (utils/xfer.py, ~3.5x fewer transport bytes); transfers for bucket
-    # j+1 stream while bucket j's kernel runs — the upload/compute
-    # overlap of VERDICT r4 #1(b,c).
+    # go 2-bit packed with run-encoded exceptions (utils/xfer.py);
+    # transfers for bucket j+1 stream while bucket j's kernel runs.
     from gecoz_tpu.ops.sa_device import (ELL_BITS_LADDER, TOK_TABLE_SIZE,
                                          max_run_length, runs_m_pad,
                                          runs_token_table)
@@ -429,10 +425,9 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
     device work (the mesh analog of the reference's intra-block 2-way
     overlap, GecozFileWriter.java:262-277).
 
-    backend: 'auto' uses the device wavelet kernel when a responsive
-    accelerator is attached (any device failure falls back per block);
-    'device' forces the jax wavelet kernel (also runs on CPU jax);
-    'host' keeps wavelet construction in vectorized numpy.
+    backend: 'auto' picks the tier up front (`accel.device_tier`);
+    'device' forces the jax pipeline (also runs on CPU jax) and raises
+    on a device error; 'host' keeps wavelet construction in numpy.
     Returns (gcz_block, gcx_block) per input block, in input order.
     """
     from concurrent.futures import ThreadPoolExecutor
@@ -453,9 +448,7 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
     if backend == "auto":
         from gecoz_tpu.utils import accel
         big = max((len(b) for b in blocks), default=0)
-        backend = ("device" if accel.device_worthwhile(big)
-                   and accel.accelerator_ok()
-                   and accel.encode_device_wins(big) else "host")
+        backend = "device" if accel.device_tier(big) else "host"
 
     sf = sampling_rate.bit_length() - 1
 
@@ -468,40 +461,32 @@ def encode_blocks(blocks: list[np.ndarray], headers: list[list[str]],
             return gcz, gcx
 
     if backend == "device":
-        # minimal-wire device pipeline: the SA, the sampled-SA parts and
-        # the wavelet bit planes are all derived ON DEVICE; the host
+        # minimal-transfer device pipeline: the SA, the sampled-SA parts
+        # and the wavelet bit planes are all derived ON DEVICE; the host
         # fetches only serialization artifacts (~0.55 bytes/char: mark
-        # bits n/8 + sampled values n/8 + node bits ~0.3n) instead of
-        # round 4's full SA + BWT (5 bytes/char, VERDICT r4 weak #1)
-        try:
-            from gecoz_tpu.index.rankbv import RankBitVector
-            from gecoz_tpu.index.iwt import IndexWaveletTree
-            from gecoz_tpu.ops.wavelet import build_hswt_device
+        # bits n/8 + sampled values n/8 + node bits ~0.3n)
+        from gecoz_tpu.index.iwt import IndexWaveletTree
+        from gecoz_tpu.index.rankbv import RankBitVector
+        from gecoz_tpu.ops.wavelet import build_hswt_device
 
-            with metrics.phase("mesh.sa", sum(len(b) for b in blocks)):
-                states = index_states_batched(blocks, sampling_rate)
-            futures = []
-            with ThreadPoolExecutor(max_workers=2) as pool:
-                for data, hdrs, (mark_bytes, perm, bwt_dev) in zip(
-                        blocks, headers, states):
-                    n = len(data)
-                    shape = HSWTShape.from_counts(
-                        np.bincount(data, minlength=256))
-                    with metrics.phase("mesh.wavelet", n):
-                        hswt = HSWT.from_packed(
-                            shape, build_hswt_device(bwt_dev, shape))
-                    ssa = SampledSAIndex(
-                        RankBitVector(mark_bytes, n),
-                        IndexWaveletTree(perm.astype(np.int64)), sf)
-                    futures.append(pool.submit(serialize, n, hdrs, ssa,
-                                               shape, hswt))
-                return [f.result() for f in futures]
-        except Exception as ex:              # noqa: BLE001 — device tier
-            import logging
-            logging.getLogger("gecoz").warning(
-                "device mesh pipeline failed (%s: %s); host tier",
-                type(ex).__name__, ex)
-            backend = "host"
+        with metrics.phase("mesh.sa", sum(len(b) for b in blocks)):
+            states = index_states_batched(blocks, sampling_rate)
+        futures = []
+        with ThreadPoolExecutor(max_workers=2) as pool:
+            for data, hdrs, (mark_bytes, perm, bwt_dev) in zip(
+                    blocks, headers, states):
+                n = len(data)
+                shape = HSWTShape.from_counts(
+                    np.bincount(data, minlength=256))
+                with metrics.phase("mesh.wavelet", n):
+                    hswt = HSWT.from_packed(
+                        shape, build_hswt_device(bwt_dev, shape))
+                ssa = SampledSAIndex(
+                    RankBitVector(mark_bytes, n),
+                    IndexWaveletTree(perm.astype(np.int64)), sf)
+                futures.append(pool.submit(serialize, n, hdrs, ssa,
+                                           shape, hswt))
+            return [f.result() for f in futures]
 
     with metrics.phase("mesh.sa", sum(len(b) for b in blocks)):
         sabs = suffix_arrays_batched(blocks, with_bwt=True)

@@ -1,14 +1,14 @@
-"""Sharded suffix sort: blocks larger than one chip's HBM.
+"""Sharded suffix sort: blocks larger than one device's memory.
 
 This is the explicit in-block 'seq'-axis distribution (SURVEY §5
 long-context: the reference's analogous limit is the int32 SA,
 SAIS.java:103).  GSPMD does NOT distribute `lax.sort` along the sorted
 dimension — it all-gathers the operands onto every device (verified: a
 sharded 4 MiB sort compiles to per-device temp == the full array), so a
-suffix sort whose working set exceeds one chip's HBM needs a hand-authored
+suffix sort whose working set exceeds one device's memory needs a hand-authored
 distributed sort.  Everything here is `shard_map` over a 1-D device axis;
 per-device memory is O(n / D) with only
-  * full-shard neighbor exchanges (`ppermute`, rides the ICI ring),
+  * full-shard neighbor exchanges (`ppermute`),
   * [1]-element boundary fetches, and
   * [D]-element all-gathers of per-shard scalars
 as communication.
@@ -20,8 +20,8 @@ Algorithm
   exchange-merge-split (pair sorts 2L elements, low rank keeps the lower
   half) yield a globally sorted, block-distributed array (block-level 0-1
   principle).  All shifts and permutation-scatters are expressed as
-  value-carrying sorts — the same "sorts instead of random HBM access"
-  stance as the single-chip kernels (ops/sa_device.py).
+  value-carrying sorts — the same "sorts instead of random memory
+  access" stance as the single-device kernels (ops/sa_device.py).
 * Two suffix-array variants over that sort, mirroring the single-chip
   pair (ops/sa_device.py):
   - 'kmer': dense-packed k-mer seeding + prefix doubling with global
@@ -213,8 +213,8 @@ def _sort_rerank_n(keys: tuple, pos, vals: tuple, n: int, axis: str,
     `vals` ride the sort.  Returns (rank_by_position, pos_in_rank_order,
     vals_in_rank_order, all_distinct).
 
-    Wider key tuples are for rounds OUTSIDE while_loop only (the Mosaic
-    wide-sort-in-loop compile cliff, see ops/sa_device.py)."""
+    Wider key tuples are for rounds OUTSIDE while_loop only (see
+    ops/sa_device.py)."""
     nk = len(keys)
     ops = sorted_sharded(tuple(keys) + (pos,) + tuple(vals), nk + 1,
                          axis, D)
@@ -417,8 +417,7 @@ def _suffix_array_sharded_runs_jit(s: jax.Array, n_real: jax.Array, *,
             """One token-doubling round covering up to 3*nkeys*k tokens.
 
             nkeys > 2 widens the distributed sort — used ONLY for the
-            first round, which runs outside the while_loop (the Mosaic
-            wide-sort-in-loop compile cliff)."""
+            first round, which runs outside the while_loop."""
             B = jax.lax.pmax(
                 jnp.max(jnp.where(ig < m, rank, -1)), axis) + 2
 

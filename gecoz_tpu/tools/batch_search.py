@@ -36,7 +36,7 @@ def find_batched(fm, patterns: list[bytes],
         # kmer table seeds the searches; the locate table turns each hit's
         # rate-step LF walk into ONE 8-byte gather (fmq.with_locate_table).
         # Its pointer-doubling build keeps ~8 int32 sort operands in
-        # flight, so chr1-class blocks on a tight HBM budget keep the
+        # flight, so chr1-class blocks on a tight memory budget keep the
         # fused-LF walk instead.
         from gecoz_tpu.utils import accel
         budget = accel.device_hbm_bytes()

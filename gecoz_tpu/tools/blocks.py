@@ -15,7 +15,7 @@ Block sizes count one ``\\0`` terminator per sequence
 (GecozRefBlock.java:43-57).
 
 This static, size-balanced plan is also the multi-chip schedule: blocks are
-the unit of data parallelism across a TPU mesh (largest first).
+the unit of data parallelism across a device mesh (largest first).
 """
 
 from __future__ import annotations

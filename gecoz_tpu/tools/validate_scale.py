@@ -18,18 +18,17 @@ Two genome profiles:
   chr1-sized sequence (--mb, default 248) plus proportionally smaller ones,
   so the largest block matches the reference's worst case.
 
-``--cli`` drives the real CLI in a subprocess (the exact user path,
-including the malloc re-exec); default runs the drivers in-process.
+The drivers run in-process (`chip_smoke.py` drives the same path through
+the CLI's entry point on the GPU).
 
 Usage: python -m gecoz_tpu.tools.validate_scale [--profile hg38] [--mb 248]
-           [--out DIR] [--cli] [--backend auto|native|numpy|device] [-t N]
+           [--out DIR] [--backend auto|native|numpy|device] [-t N]
 """
 
 from __future__ import annotations
 
 import argparse
 import hashlib
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -85,6 +84,14 @@ def synth_seq(rng: np.random.Generator, n: int) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def hg38_sizes(chr1_bytes: int) -> dict[str, int]:
+    """The hg38 profile's sequences: chr1 at `chr1_bytes` and four
+    smaller ones in hg38's proportions (chr9, chr17, chr21, chrM)."""
+    return {"chr1": chr1_bytes, "chr9": int(chr1_bytes * 0.56),
+            "chr17": int(chr1_bytes * 0.33), "chr21": int(chr1_bytes * 0.19),
+            "chrM": 16_569}
+
+
 def write_fasta(path: Path, chroms: dict[str, np.ndarray],
                 width: int = 60) -> None:
     """60-char-line FASTA, reflowed without a per-line python loop."""
@@ -129,43 +136,31 @@ def overlap_count(hay: bytes, pat: bytes) -> int:
     return want
 
 
-def run_cli(args: list[str]) -> float:
-    cmd = [sys.executable, "-m", "gecoz_tpu.cli", *args]
-    print("+", " ".join(cmd), flush=True)
-    t0 = time.perf_counter()
-    subprocess.run(cmd, check=True)
-    return time.perf_counter() - t0
-
-
 def main(argv: list[str] | None = None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--profile", choices=("genome", "hg38"), default="genome")
     ap.add_argument("--mb", type=int, default=None,
                     help="total MB (genome) or chr1 MB (hg38)")
     ap.add_argument("--out", type=Path, default=None)
-    ap.add_argument("--cli", action="store_true",
-                    help="drive the CLI in a subprocess")
     ap.add_argument("--backend", default="auto")
     ap.add_argument("-t", "--threads", type=int, default=1)
     a = ap.parse_args(argv)
-    # surface the gecoz INFO stream (phase timings + the transport-aware
-    # dispatch decisions of utils/accel) in scale artifacts
+    # surface the gecoz INFO stream (phase timings) in the run's output
     import logging
     logging.basicConfig(level=logging.INFO,
                         format="%(levelname)s:%(name)s: %(message)s")
     logging.getLogger("gecoz").setLevel(logging.INFO)
     mb = a.mb if a.mb is not None else (248 if a.profile == "hg38" else 192)
-    outdir = a.out or Path("/tmp/gcz_scale")
+    outdir = a.out or (Path(__file__).resolve().parents[2] / ".smoke_work"
+                       / "validate_scale")
     outdir.mkdir(parents=True, exist_ok=True)
     rng = np.random.default_rng(2024)
 
     # -- synthesize ---------------------------------------------------------
     t0 = time.perf_counter()
     if a.profile == "hg38":
-        sizes = {"chr1": mb << 20, "chr9": int(mb * 0.56) << 20,
-                 "chr17": int(mb * 0.33) << 20, "chr21": int(mb * 0.19) << 20,
-                 "chrM": 16_569}
-        chroms = {k: synth_seq(rng, n) for k, n in sizes.items()}
+        chroms = {k: synth_seq(rng, n)
+                  for k, n in hg38_sizes(mb << 20).items()}
     else:
         # chromosome size spectrum roughly hg38-shaped (largest ~12.5%)
         total = mb << 20
@@ -212,14 +207,10 @@ def main(argv: list[str] | None = None) -> int:
     from gecoz_tpu.tools import driver
     gcz = outdir / "genome.gcz"
     gcx = gcz.with_suffix(".gcx")
-    if a.cli:
-        t_idx = run_cli(["-i", str(fa), "-o", str(gcz), "-t", str(a.threads),
-                         "--backend", a.backend, "-v", "INFO"])
-    else:
-        t0 = time.perf_counter()
-        driver.index_fasta(str(fa), str(gcz), backend=a.backend,
-                           threads=a.threads)
-        t_idx = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    driver.index_fasta(str(fa), str(gcz), backend=a.backend,
+                       threads=a.threads)
+    t_idx = time.perf_counter() - t0
     csize = gcz.stat().st_size + gcx.stat().st_size
     print(f"INDEX {total / 1e6 / t_idx:.1f} MB/s | .gcz "
           f"{gcz.stat().st_size / 1e6:.0f} MB + .gcx "
@@ -228,14 +219,10 @@ def main(argv: list[str] | None = None) -> int:
 
     # -- decompress + md5 compare -------------------------------------------
     back = outdir / "back.fa"
-    if a.cli:
-        t_dec = run_cli(["-i", str(gcz), "-o", str(back), "-t",
-                         str(a.threads), "--backend", a.backend])
-    else:
-        t0 = time.perf_counter()
-        driver.decompress(str(gcz), str(back), backend=a.backend,
-                          threads=a.threads)
-        t_dec = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    driver.decompress(str(gcz), str(back), backend=a.backend,
+                      threads=a.threads)
+    t_dec = time.perf_counter() - t0
     print(f"DECODE {total / 1e6 / t_dec:.1f} MB/s", flush=True)
     got = md5s_of_fasta(back)
     ok = got == want_md5
@@ -249,17 +236,8 @@ def main(argv: list[str] | None = None) -> int:
     import io
     for pat, want in checks:
         t0 = time.perf_counter()
-        if a.cli:
-            r = subprocess.run(
-                [sys.executable, "-m", "gecoz_tpu.cli", "-i", str(gcz),
-                 "-c", pat.decode()], capture_output=True, text=True,
-                check=True)
-            n_hits = sum(int(line.rsplit(" ", 1)[-1].split()[0])
-                         for line in r.stdout.splitlines()
-                         if " found : " in line)
-        else:
-            n_hits = driver.match(str(gcz), None, pat.decode(), False,
-                                  out=io.StringIO())
+        n_hits = driver.match(str(gcz), None, pat.decode(), False,
+                              out=io.StringIO())
         dt = time.perf_counter() - t0
         status = "OK" if n_hits == want else f"FAIL want {want}"
         print(f"count {len(pat)}-mer: {n_hits} ({dt * 1e3:.0f} ms) {status}",
@@ -280,7 +258,7 @@ def main(argv: list[str] | None = None) -> int:
     print("--check:", "OK" if check_ok else "FAILED")
     from gecoz_tpu.utils import metrics
     rep = metrics.report()
-    if rep and not a.cli:
+    if rep:
         print("--- phase breakdown (in-process) ---")
         print(rep, flush=True)
     print("LARGE-SCALE CHECK", "PASSED" if ok and check_ok else "FAILED",

@@ -161,8 +161,8 @@ def test_gzipped_fasta_input(tmp_path, rng):
 
 
 def test_native_lpf_matches_python_oracle(rng):
-    """native/lpf.cpp vs the pure-python exact-LPF matcher (VERDICT r3 #8:
-    the SA matcher is now production speed — C pipeline, python oracle)."""
+    """native/lpf.cpp vs the pure-python exact-LPF matcher (the SA
+    matcher runs as a C pipeline; python is the oracle)."""
     import unittest.mock as um
 
     import gecoz_tpu.codec.deflate as D

@@ -170,25 +170,6 @@ def test_kmer_table_tiny_block(rng):
         assert (int(sp[i]), int(ep[i])) == (hsp, hep), p
 
 
-def test_pallas_scan_kernels_interpret(rng, monkeypatch):
-    """Streaming-scan kernels (interpret mode off-TPU) match numpy."""
-    import jax.experimental.pallas as pl
-    from gecoz_tpu.ops import scan_pallas as sp
-    monkeypatch.setattr(sp, "_use_pallas", lambda: True)
-    orig = pl.pallas_call
-    monkeypatch.setattr(pl, "pallas_call",
-                        lambda *a, **k: orig(*a, **{**k, "interpret": True}))
-    n = 2 * sp._C + 7
-    x = rng.integers(-1000, 1000, n).astype(np.int32)
-    d = jnp.asarray(x)
-    assert np.array_equal(np.asarray(sp.cumsum_i32(d)),
-                          np.cumsum(x).astype(np.int32))
-    assert np.array_equal(np.asarray(sp.cummax_i32(d)),
-                          np.maximum.accumulate(x))
-    assert np.array_equal(np.asarray(sp.cummin_rev_i32(d)),
-                          np.minimum.accumulate(x[::-1])[::-1])
-
-
 @pytest.mark.parametrize("rate", [1, 4, 32])
 def test_locate_table_one_gather(rate, rng):
     """with_locate_table precomputes every row's walk (pointer doubling);

@@ -1,4 +1,4 @@
-"""Hand-derived byte fixtures for the format quirks (VERDICT r4 #6).
+"""Hand-derived byte fixtures for the format quirks.
 
 No JVM exists in this image (re-checked round 5), so `gecotools.jar`
 byte-parity cannot be tested directly.  The streaming emulator

@@ -22,7 +22,7 @@ def runs_sa(s: np.ndarray) -> np.ndarray:
     # the fused BWT must match the gather formulation
     from gecoz_tpu.ops.sa import bwt_from_sa
     assert np.array_equal(np.asarray(bwt), bwt_from_sa(s, np.asarray(sa)))
-    # both nr-broadcast strategies (TPU: placement sort + segmented cummax
+    # both nr-broadcast strategies (GPU: placement sort + segmented cummax
     # fill; CPU default: monotone gather) must agree
     sa_f, bwt_f = _suffix_array_runs_jit(jnp.asarray(s, jnp.uint8),
                                          nr_mode="fill")
@@ -103,12 +103,13 @@ def test_runs_equal_length_runs_different_tails(rng):
 
 
 def test_tpu_sort_paths_on_cpu(rng, monkeypatch):
-    """Force the TPU strategy (sorts instead of scatters) on the CPU
-    backend: exercises apply_perm-as-sort, the fused compaction+densify
-    two-sort pipeline, and the placement-sort + segmented-cummax nr fill —
-    the branches the real chip runs but plain CPU tests never reach."""
+    """Force the sort strategy (sorts instead of scatters, the GPU's
+    branches) on the CPU backend: exercises apply_perm-as-sort, the fused
+    compaction+densify two-sort pipeline, and the placement-sort +
+    segmented-cummax nr fill — branches plain CPU tests never reach."""
     from gecoz_tpu.ops import sa_device
-    monkeypatch.setattr(sa_device, "_scatter_is_cheap", lambda: False)
+    monkeypatch.setattr(sa_device, "_scatter_is_cheap",
+                        lambda nvals=1: False)
     jax.clear_caches()   # drop traces compiled with the scatter strategy
     try:
         for trial in range(3):
@@ -129,7 +130,7 @@ def test_tpu_sort_paths_on_cpu(rng, monkeypatch):
 
 def test_m_pad_static_token_bound(rng, monkeypatch):
     """m_pad (static run-count bound) must not change results — on both
-    the scatter (CPU) and sort (TPU) compaction strategies, at tight and
+    the scatter (CPU) and sort (GPU) compaction strategies, at tight and
     loose bounds, including m_pad == exact run count."""
     from gecoz_tpu.ops import sa_device
     from gecoz_tpu.ops.sa_device import m_pad_bucket, runs_m_pad
@@ -146,7 +147,7 @@ def test_m_pad_static_token_bound(rng, monkeypatch):
     for force_sorts in (False, True):
         if force_sorts:
             monkeypatch.setattr(sa_device, "_scatter_is_cheap",
-                                lambda: False)
+                                lambda nvals=1: False)
             jax.clear_caches()
         try:
             for mp in (m, runs_m_pad(s), n - 1, n):
@@ -227,7 +228,8 @@ def test_tok_table_compaction_path(rng, monkeypatch):
     syms = tuple(int(x) for x in np.unique(s))
     tab = runs_token_table(s, syms)
     assert tab is not None
-    monkeypatch.setattr(sa_device, "_scatter_is_cheap", lambda: False)
+    monkeypatch.setattr(sa_device, "_scatter_is_cheap",
+                        lambda nvals=1: False)
     jax.clear_caches()
     try:
         for mp in (None, sa_device.runs_m_pad(s)):
@@ -261,7 +263,7 @@ def test_ell_bits_static_run_length_bound(rng, monkeypatch):
     for force_sorts in (False, True):
         if force_sorts:
             monkeypatch.setattr(sa_device, "_scatter_is_cheap",
-                                lambda: False)
+                                lambda nvals=1: False)
             jax.clear_caches()
         try:
             for ebs in (tight, runs_ell_bits(s), None):
@@ -317,12 +319,13 @@ def test_fast_slow_delivery_paths(rng, monkeypatch):
     """Round-5 fast-path delivery (next-run rank delivered via the
     round-one carry + one sort) AND its slow branch (ties survive round
     one -> classic rerank + while_loop + placed chain inside lax.cond)
-    are both bit-exact under the forced TPU sort strategy, with and
+    are both bit-exact under the forced sort strategy, with and
     without the host token table."""
     from gecoz_tpu.ops import sa_device
     from gecoz_tpu.ops.sa_device import (runs_ell_bits, runs_m_pad,
                                          runs_token_table)
-    monkeypatch.setattr(sa_device, "_scatter_is_cheap", lambda: False)
+    monkeypatch.setattr(sa_device, "_scatter_is_cheap",
+                        lambda nvals=1: False)
     jax.clear_caches()
     try:
         # periodic text -> periodic token string: repeated contexts far

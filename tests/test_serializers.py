@@ -180,7 +180,7 @@ def test_lazy_iwt_get_find_in_place(n, rng):
 
 
 def test_cold_count_never_deinterleaves(rng, tmp_path, monkeypatch):
-    """Regression for the 22.5s cold-count finding (VERDICT r3 #1): a count
+    """Regression for a slow cold count: a count
     (+ locate) on a freshly opened index must answer entirely from the
     interleaved streams — any full-node deinterleave or IWT
     materialization fails the test."""

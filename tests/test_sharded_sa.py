@@ -1,7 +1,7 @@
 """Sharded suffix sort over the 8-virtual-device CPU mesh.
 
 Validates the explicit 'seq'-axis distribution (SURVEY §5 long-context;
-the escape hatch for blocks above one chip's HBM): bit-exactness vs the
+the escape hatch for blocks above one device's memory): bit-exactness vs the
 native SA-IS, and — via compiled-HLO + memory analysis — that the arrays
 actually STAY sharded (GSPMD's sort handling would all-gather; the
 hand-authored odd-even transposition sort must not)."""
@@ -68,7 +68,7 @@ def test_sharded_sa_not_multiple_of_devices(rng):
 
 @pytest.mark.slow
 def test_sharded_sa_8mib_stays_sharded(rng):
-    """The VERDICT-scale proof: an 8 MiB block across 8 devices — shards
+    """An 8 MiB block across 8 devices — shards
     meaningfully partial — bit-exact, with per-device memory O(n/D):
     no full-size all-gather in the compiled HLO and bounded temp."""
     n = 1 << 23
@@ -122,7 +122,7 @@ def test_sharded_runs_vs_kmer_same_result(rng):
 
 @pytest.mark.slow
 def test_sharded_runs_megabase_run_stays_sharded(rng):
-    """The VERDICT round-3 criterion: a block with a 1 Mi equal-symbol run
+    """A block with a 1 Mi equal-symbol run
     is bit-exact through the run-seeded sharded path (the seed sort fully
     orders the run; token doubling never sees its length), and the
     compiled HLO stays sharded (no full-size all-gather, bounded temp)."""
@@ -151,8 +151,8 @@ def test_sharded_runs_megabase_run_stays_sharded(rng):
 
 
 def test_sharded_dispatch_end_to_end(rng, tmp_path, monkeypatch):
-    """Production wiring (VERDICT r3 #4): when a block's estimated device
-    working set exceeds one device's HBM budget, the encode path routes
+    """Production wiring: when a block's estimated device
+    working set exceeds one device's memory budget, the encode path routes
     through suffix_array_sharded across the mesh — and the resulting
     .gcz/.gcx files are byte-identical to the host tier's."""
     import gecoz_tpu.parallel.sharded_sa as ss

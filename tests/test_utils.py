@@ -69,32 +69,3 @@ def test_slice_packed_bits_matches_unpack_repack():
         got = slice_packed_bits(buf, s, ln)
         assert np.array_equal(got, want)
     assert slice_packed_bits(np.zeros(2, np.uint8), 3, 0).size == 0
-
-
-def test_transport_aware_dispatch(monkeypatch):
-    """The auto tier must route around a slow relay (VERDICT r4 #1a):
-    break-even transports are ~3.4 MB/s (encode) and ~10 MB/s (decode)
-    per the measured wire ratios — a ~2 MB/s relay loses both to the
-    host tier, a 5 MB/s link wins encode only, a fast interconnect wins
-    both; unknown transport keeps legacy behavior."""
-    from gecoz_tpu.utils import accel
-
-    n = 256 << 20
-    monkeypatch.setenv("GECOZ_TRANSPORT_MBPS", "2.0")
-    assert accel.transport_MBps() == 2.0
-    assert not accel.encode_device_wins(n)
-    assert not accel.decode_device_wins(n)
-
-    monkeypatch.setenv("GECOZ_TRANSPORT_MBPS", "5.0")
-    assert accel.encode_device_wins(n)
-    assert not accel.decode_device_wins(n)
-
-    monkeypatch.setenv("GECOZ_TRANSPORT_MBPS", "1000")
-    assert accel.encode_device_wins(n)
-    assert accel.decode_device_wins(n)
-
-    monkeypatch.delenv("GECOZ_TRANSPORT_MBPS")
-    monkeypatch.setattr(accel, "_TRANSPORT", None)
-    assert accel.transport_MBps() is None
-    assert accel.encode_device_wins(n)
-    assert accel.decode_device_wins(n)
